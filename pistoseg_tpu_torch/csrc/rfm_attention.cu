@@ -27,6 +27,9 @@
 //
 // Shapes: q, k (N, L, D) f32 contiguous, D % 4 == 0, D <= MAX_D;
 // v (N, L, C) f32 contiguous, 1 <= C <= MAX_C; out (N, L, C) f32.
+// lse (N, L) f32, optional (null: not written): the per-column log-sum-exp
+// lse[n, j] = m_j + log l_j, from which the backward kernel
+// (rfm_attention_bwd.cu) recomputes P[i, j] = exp(q_i . k_j - lse_j).
 // Ragged L (784 at the 224 train size) is masked on both i and j.
 // The launch allocates nothing and returns cudaGetLastError().
 
@@ -70,7 +73,7 @@ __device__ void load_rows(float* dst, const float* src, int r0, int rows,
 __global__ void __launch_bounds__(THREADS)
 rfm_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int l, int d, int c) {
+                     float* __restrict__ lse, int l, int d, int c) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int row = d + PAD;
@@ -189,6 +192,7 @@ rfm_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int ch = sub + 4 * m;
       if (ch < c) dst[ch] = acc[m] * inv;
     }
+    if (lse != nullptr && sub == 0) lse[(size_t)n * l + j] = m_run + logf(l_run);
   }
 }
 
@@ -199,9 +203,10 @@ extern "C" {
 int rfm_attention_max_c() { return MAX_C; }
 int rfm_attention_max_d() { return MAX_D; }
 
-// Launch on `stream`; returns a cudaError_t (0 = launched).
+// Launch on `stream`; returns a cudaError_t (0 = launched).  `lse` may be
+// null.
 int rfm_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                      int n, int l, int d, int c, void* stream) {
+                      void* lse, int n, int l, int d, int c, void* stream) {
   if (n < 1 || l < 1 || d < 4 || d % 4 != 0 || d > MAX_D || c < 1 || c > MAX_C)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(d);
@@ -211,7 +216,8 @@ int rfm_attention_fwd(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((l + BJ - 1) / BJ, n);
   rfm_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, l, d, c);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, l, d, c);
   return (int)cudaGetLastError();
 }
 

@@ -11,17 +11,20 @@ the deterministic align-corners matrix resize.
 The modules compute in NCHW; ``ReviseNet.forward`` and ``get_norm_cam_d``
 keep the JAX package's NHWC layout at their boundary so the two packages
 compare like with like.  The heads and the attention run in float32
-whatever the trunk's dtype.
+whatever the trunk's dtype.  Training passes the drawn spatial-dropout
+masks (``ReviseNet.dropout_sites``: b6, b7 and ``dropout7``, 0.5 on
+conv6 before ``fc8``); the attention is differentiable in q and k, and
+``get_norm_cam_d`` stays detached.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from pistoseg_tpu_torch.models.resnet38d import Conv, ResNet38d
+from pistoseg_tpu_torch.models.resnet38d import Conv, Masks, ResNet38d, apply_mask
 from pistoseg_tpu_torch.ops.cuda.rfm_attention import rfm_attention
 from pistoseg_tpu_torch.ops.resize import resize
 
@@ -57,15 +60,16 @@ class ReviseNet(ResNet38d):
 
     The trunk's parameters sit at the top level beside the heads, with the
     reference's names.  ``use_kernel=True`` runs the affinity and the
-    three refinements as one fused kernel call over the three maps
-    concatenated on channels (``ops/cuda/rfm_attention.py``); ``False``
-    materialises the affinity with einsums, as the JAX package's
-    ``use_pallas=False`` path does.
+    three refinements as one fused, differentiable kernel call over the
+    three maps concatenated on channels (``ops/cuda/rfm_attention.py``:
+    forward and backward kernels on the card); ``False`` materialises the
+    affinity with einsums, as the JAX package's ``use_pallas=False`` path
+    does.
     """
 
     def __init__(self, num_classes: int, use_kernel: bool = True,
-                 act_dtype: torch.dtype = torch.float32):
-        super().__init__(b7_dilation=4, act_dtype=act_dtype)
+                 act_dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(b7_dilation=4, act_dtype=act_dtype, remat=remat)
         self.num_classes = num_classes
         self.use_kernel = use_kernel
         self.fc8 = Conv(4096, num_classes, 1)
@@ -74,18 +78,24 @@ class ReviseNet(ResNet38d):
         self.f9_1 = Conv(195, 192, 1)
         self.f9_2 = Conv(195, 192, 1)
 
+    def dropout_sites(self) -> Dict[str, Tuple[int, float]]:
+        """The trunk's sites plus ``dropout7`` on conv6 (``rfm.py:87-88``)."""
+        return {**super().dropout_sites(), "dropout7": (4096, 0.5)}
+
     def forward(
         self,
         x: torch.Tensor,      # (N, H, W, 3) normalized image
         pmask: torch.Tensor,  # (N, h, w, C) pseudo-mask logits incl. bg ch 0
         pcam: torch.Tensor,   # (N, h, w, C) CAM scores incl. bg ch 0
+        masks: Masks = None,  # drawn dropout masks of dropout_sites(); None = eval
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         N, H, W, _ = x.shape
         C = self.num_classes
         x = _nchw(x.float())
-        d = self.forward_as_dict(x)
+        d = self.forward_as_dict(x, masks)
+        conv6 = apply_mask(d["conv6"], None if masks is None else masks["dropout7"])
         # CAM head and attention projections in f32 (parity-sensitive)
-        cam = self.fc8(d["conv6"].float())                     # (N, C, h, w)
+        cam = self.fc8(conv6.float())                          # (N, C, h, w)
         h, w = cam.shape[2:]
         L = h * w
 

@@ -20,7 +20,6 @@ The checkpoint is the port's ``rfm.pt`` (``core/checkpoint.py``).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -43,24 +42,8 @@ from pistoseg_tpu_torch.ops.augment import imagenet_normalize
 from pistoseg_tpu_torch.ops.background import extract_background
 from pistoseg_tpu_torch.ops.palette import encode_palette_png
 from pistoseg_tpu_torch.ops.resize import resize_palette_pil
-from pistoseg_tpu_torch.stages.common import parse_cli, resolve_device
+from pistoseg_tpu_torch.stages.common import float32_precision, parse_cli, resolve_device
 from pistoseg_tpu_torch.stages.stage4_revise import prepare_batch
-
-
-@contextmanager
-def _float32_precision(precision: str):
-    """TF32 on the card follows ``revise.precision``: off for ``fp32``.
-    With ``bf16`` the float32 head convs may use TF32 in cuDNN, as the
-    TPU's default precision rounds them; matmuls stay full float32
-    because the only ones are the resizes, which the JAX package pins
-    to ``Precision.HIGHEST``.  The previous flags are restored."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = precision != "fp32"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _predict(model: ReviseNet, x, pmask, pcam, label) -> List[np.ndarray]:
@@ -140,7 +123,7 @@ def infer_stage4b(
     # host emission (decode + bg extract + 3 palette PNG writes per patch)
     # overlaps the next batch's device work
     with ThreadPoolExecutor(max_workers=8) as pool, torch.inference_mode(), \
-            _float32_precision(rc.precision):
+            float32_precision(rc.precision):
         for batch in loader.epoch(0):
             pmask, pcam, label = prepare_batch(batch, dev)
             x = torch.as_tensor(batch["image"], device=dev)

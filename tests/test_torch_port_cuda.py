@@ -5,8 +5,10 @@ Imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)  The
-kernel is held against its plain PyTorch version at atol 1e-4, in float32
-with TF32 off: both sum the same float32 products in different orders.
+kernels are held against their plain PyTorch versions, in float32 with TF32
+off: both sum the same float32 products in different orders.  The forward
+at atol 1e-4; the backward's dq, dk and dv at 1e-4 · max(1, max |plain|),
+since its gradients grow with the scores' scale.
 """
 
 import numpy as np
@@ -14,7 +16,10 @@ import pytest
 import torch
 
 from pistoseg_tpu_torch.ops.cuda.rfm_attention import (
+    _launch_forward,
     rfm_attention,
+    rfm_attention_backward,
+    rfm_attention_backward_reference,
     rfm_attention_reference,
 )
 
@@ -72,3 +77,69 @@ def test_kernel_rejects_mixed_devices(dev):
     q, k, v = _inputs(dev, 8, 1, 16, 8, 4)
     with pytest.raises(ValueError):
         rfm_attention(q, k.cpu(), v)
+
+
+def _grad(dev, seed, n, l, c):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(n, l, c).astype(np.float32)).to(dev)
+
+
+def _assert_grads_close(got, want):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item()), f"{name}: {err}"
+
+
+@pytest.mark.parametrize("n,l,d,c,scale", [
+    (16, 784, 192, 12, 0.3),    # stage-4 train shape, WSSS4LUAD 3C
+    (16, 784, 192, 15, 0.3),    # BCSS 3C
+    (2, 100, 192, 4, 0.3),      # ragged on i and j
+    (8, 1024, 192, 12, 1.0),    # peaked scores
+    (64, 1024, 192, 12, 0.3),   # stage-4b batch
+    (1, 70, 64, 32, 0.3),       # widest C, ragged
+    (1, 65, 256, 1, 0.3),       # widest D, one channel
+])
+def test_backward_kernel_matches_plain_version(dev, n, l, d, c, scale):
+    q, k, v = _inputs(dev, 9, n, l, d, c, scale)
+    g = _grad(dev, 10, n, l, c)
+    out, lse = _launch_forward(q, k, v, with_lse=True)
+    torch.testing.assert_close(lse, torch.logsumexp(
+        torch.einsum("nid,njd->nij", q, k), dim=1), rtol=0, atol=1e-4)
+    before = rfm_attention_backward.launches
+    got = rfm_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert rfm_attention_backward.launches == before + 1
+    _assert_grads_close(got, rfm_attention_backward_reference(q, k, v, g))
+
+
+def test_autograd_function_launches_both_kernels(dev):
+    q, k, v = _inputs(dev, 11, 4, 784, 192, 12)
+    g = _grad(dev, 12, 4, 784, 12)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = rfm_attention.launches, rfm_attention_backward.launches
+    grads = torch.autograd.grad(rfm_attention(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    assert (rfm_attention.launches, rfm_attention_backward.launches) == (fwd + 1, bwd + 1)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    _assert_grads_close(grads, torch.autograd.grad(rfm_attention_reference(*ref), ref, g))
+
+
+def test_backward_is_deterministic(dev):
+    q, k, v = _inputs(dev, 13, 2, 784, 192, 12)
+    g = _grad(dev, 14, 2, 784, 12)
+    out, lse = _launch_forward(q, k, v, with_lse=True)
+    first = rfm_attention_backward(q, k, v, out, lse, g)
+    second = rfm_attention_backward(q, k, v, out, lse, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,l,d,c", [(1, 64, 30, 4), (1, 64, 260, 4), (1, 64, 32, 33)])
+def test_backward_rejects_unsupported_shapes(dev, n, l, d, c):
+    q, k, v = _inputs(dev, 15, n, l, d, c)
+    g = _grad(dev, 16, n, l, c)
+    lse = torch.zeros(n, l, device=dev)
+    before = rfm_attention_backward.launches
+    with pytest.raises(ValueError):
+        rfm_attention_backward(q, k, v, v, lse, g)
+    assert rfm_attention_backward.launches == before
